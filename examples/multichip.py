@@ -1,54 +1,63 @@
 """Multi-chip scaling over a jax.sharding mesh.
 
 The reference (nordmtr/quantpy) is single-process NumPy with sequential
-loops — there is no parallel story to port, so this is TPU-native
-capability beyond parity (SURVEY.md §2 checklist). Two sharding modes:
+loops — there is no parallel story to port, so this is a capability
+beyond parity (SURVEY.md §2 checklist). Two sharding modes:
 
 1. RESAMPLE sharding — thousands of independent simulate+estimate
    problems ride the mesh's batch axis; the per-device program is
    exactly the single-chip bootstrap and the only collective is the
    final gather (`sharded_bootstrap_distances`).
 2. OPERATOR sharding — for 11+ qubits, where the 6^n outcome tensor
-   outgrows one chip (8.7 GB at 12 qubits): the first measurement
+   outgrows one device (8.7 GB at 12 qubits): the first measurement
    group's outcome axis rides the mesh, counts are BORN sharded
    (`sharded_kron_simulate`), linear inversion psums only the (4^n,)
    right-hand side, and the RrhoR MLE iteration runs on the sharded
    design with one psum and one row-block all_gather per iteration
-   (`sharded_kron_estimate_mle_rhor`). This is the path that carries
-   12-qubit tomography (docs/benchmarks.md, round 5).
+   (`sharded_kron_estimate_mle_rhor`). This is the path meant to carry
+   12-qubit tomography.
 
-Runs on any mesh; on a single-host CPU run it builds the 8-device
-virtual mesh the test suite uses (set
-XLA_FLAGS=--xla_force_host_platform_device_count=8 before JAX starts —
-done below when possible).
+Runs on the devices JAX finds (at least two). To rehearse without
+accelerators, ask for a virtual CPU mesh explicitly:
 
-Run:  python examples/multichip.py
+Run:  python examples/multichip.py               # the real devices
+      python examples/multichip.py --cpu-mesh 8  # 8 virtual CPU devices
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# must happen before jax initializes: give the CPU host 8 virtual devices
-if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "")
-        + " --xla_force_host_platform_device_count=8"
-    ).strip()
-
 import numpy as np
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description="multi-device tomography demo")
+    parser.add_argument(
+        "--cpu-mesh", type=int, default=0, metavar="N",
+        help="run on N virtual CPU devices instead of the accelerators",
+    )
+    args = parser.parse_args()
+    if args.cpu_mesh:
+        # must happen before JAX initializes its backends
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + f" --xla_force_host_platform_device_count={args.cpu_mesh}"
+        ).strip()
+
     import jax
 
     if len(jax.devices()) < 2:
-        # a single real chip can't host a mesh; fall back to the CPU mesh
-        jax.config.update("jax_platforms", "cpu")
+        raise SystemExit(
+            f"need at least 2 devices for a mesh, found {jax.devices()}; "
+            "pass --cpu-mesh N for a virtual CPU mesh"
+        )
 
     import jax.numpy as jnp
 
@@ -114,10 +123,6 @@ def main() -> None:
     print(
         f"operator-sharded {n}q: lin hs-to-truth {d_lin:.4f}, MLE-40 "
         f"{d_mle:.4f}; sharded-vs-single MLE max|diff| {gap:.2e}"
-    )
-    print(
-        "(the same sharded pipeline carries 12 qubits — 1.1 GB of counts "
-        "per device on 8; docs/benchmarks.md round 5)"
     )
 
 

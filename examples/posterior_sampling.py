@@ -4,22 +4,21 @@ Counterpart of the reference's MHMC usage (quantpy/tomography/interval.py
 :688-850 samples the float64 NLL with a NumPy loop): here the chain is a
 jitted lax.scan over a smooth, exactly-CPTP kraus-factor parametrization,
 evaluated as an exact delta from a host-f64 anchor with a double-float
-reduction (the round-4 fix that broke the 4-qubit f32 precision wall —
-docs/benchmarks.md, session 5). Demonstrates:
+reduction (the fix for the 4-qubit f32 precision wall). Demonstrates:
 
 - MHMCProcessInterval(parametrization='kraus') with MALA, R-hat/ESS
   diagnostics, and bootstrap cross-validation;
 - scipy frozen distributions as proposals (mhmc.from_scipy_frozen adapts
   them to the device chain, Hastings-corrected when asymmetric).
 
-DECISION PATH for a process CI (round-5 outcome, proven):
+DECISION PATH for a process CI:
 - 1-3 qubit channels: this chain converges (R-hat < 1.1 here) and is the
   posterior-exact answer; cross-validate with the bootstrap as below.
 - 4+ qubit channels: use BootstrapProcessInterval. The chain target is
   precision-clean, but the posterior geometry is a measured wall —
   a two-seed Lanczos spectrum of the whitened Hessian shows ~12,600
   stiff directions over four curvature decades, which no feasible
-  metric flattens (docs/benchmarks.md session 6). The chain's
+  metric flattens. The chain's
   R-hat/ESS RuntimeWarning fires if you try anyway.
 
 Run:  python examples/posterior_sampling.py

@@ -1,7 +1,7 @@
 """Large-n process tomography walkthrough: the 4/5/6-qubit QPT recipes.
 
-Reproduces the scaling measurements of docs/benchmarks.md ("4/5/6-qubit
-process tomography"): a Walsh-Hadamard target channel, a proj-set
+Runs the 4/5/6-qubit process-tomography recipes: a Walsh-Hadamard target
+channel, a proj-set
 experiment, factored linear inversion, and the appropriate CPTP
 treatment per size —
 
@@ -15,8 +15,8 @@ The reference lineage cannot form any of these objects past ~3 qubits
 (its dense lifp operator is 16^n-sized, reference process.py:197-211).
 
 Run:  python examples/qpt_scaling.py [--qubits 3] [--shots 2000]
-On CPU set JAX_PLATFORMS=cpu; 5-6 qubits want the TPU (docs/benchmarks.md
-has measured wall times: ~8 min at 5 qubits, ~16 min at 6).
+On CPU set JAX_PLATFORMS=cpu; 5-6 qubits want an accelerator (their wall
+times on the H100 are not measured).
 """
 
 from __future__ import annotations

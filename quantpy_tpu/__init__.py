@@ -1,13 +1,13 @@
-"""quantpy-tpu: a TPU-native quantum tomography framework.
+"""quantpy-tpu: a batched JAX quantum tomography framework.
 
 Public API parity with the reference quantpy package (quantpy/__init__.py:1-23)
-plus the TPU-native functional layer under `quantpy_tpu.ops`,
+plus the batched functional layer under `quantpy_tpu.ops`,
 `quantpy_tpu.tomography.*` and `quantpy_tpu.parallel`.
 
 Architecture: quantum objects (Qobj/Operator/Channel) are lightweight host
 handles; all batched computation — experiment simulation, estimation,
-confidence intervals — runs as jitted, vmapped device code with real-only
-host<->device boundaries (see docs/tpu_constraints.md).
+confidence intervals — runs as jitted, vmapped device code with real
+(bloch-vector) arrays at its boundaries.
 """
 
 from . import config

@@ -2,8 +2,7 @@
 
 Counterpart of the reference's BaseQuantum ABC (quantpy/base_quantum.py:7-89).
 Objects here are lightweight *host* handles over numpy arrays: single gate or
-state matrices are O(4^n) scalars of host work, and the target TPU cannot
-receive complex arrays at all (docs/tpu_constraints.md). Batched device
+state matrices are O(4^n) scalars of host work. Batched device
 computation goes through the functional layer (quantpy_tpu.ops,
 quantpy_tpu.tomography), to which objects export real tensors
 (`.bloch`, `ops.cplx.to_pair`).

@@ -8,7 +8,7 @@ example input.json:1-26):
   conf_levels   : list of confidence levels (optional)
   target_state / target_process : bloch vector of the target (optional)
 
-Kron-mode state records (TPU-native extension for large qubit counts,
+Kron-mode state records (extension for large qubit counts,
 where the dense POVM would be GBs): instead of `povm_matrix`, give
   povm_kron     : (m1, p1, 4) single-qubit POVM block
   n_qubits      : number of qubits

@@ -6,7 +6,7 @@ builds a ProcessTomograph over the given input basis, injects the counts,
 and emits the Choi bloch vector plus (optionally) fidelity bands and
 Hilbert-Schmidt radii.
 
-TPU-native extensions over the reference script: `--method` selects the
+Extensions over the reference script: `--method` selects the
 estimator (lifp/pgdb/states/dys), `--interval` the CI family
 (moment/bootstrap/mhmc/polytope).
 """
@@ -18,6 +18,7 @@ import math
 import numpy as np
 
 from ..channel import Channel, depolarizing
+from ..config import use_compile_cache
 from ..qobj import Qobj
 from ..tomography.interval import (
     BootstrapProcessInterval,
@@ -95,6 +96,7 @@ def run(
 
 
 def main(args=None):
+    use_compile_cache()
     parsed = build_parser(
         __doc__, methods=("lifp", "pgdb", "states", "dys")
     ).parse_args(args)

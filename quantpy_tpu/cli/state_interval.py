@@ -7,7 +7,7 @@ design, injects the real counts through the `results` setter, and emits the
 bloch vector of the estimate plus (optionally) fidelity bands and
 Hilbert-Schmidt radii.
 
-TPU-native extensions over the reference script: `--method` selects the
+Extensions over the reference script: `--method` selects the
 estimator (lin/mle/mle-rhor/mle-constr), `--interval` the CI family
 (moment/sugiyama/bootstrap/mhmc/polytope), and kron-mode records run the
 whole pipeline without materializing the measurement matrix.
@@ -19,6 +19,7 @@ import math
 
 import numpy as np
 
+from ..config import use_compile_cache
 from ..qobj import Qobj, fully_mixed
 from ..tomography.interval import (
     BootstrapStateInterval,
@@ -108,6 +109,7 @@ def run(
 
 
 def main(args=None):
+    use_compile_cache()
     parsed = build_parser(__doc__).parse_args(args)
     emit(
         run(

@@ -1,9 +1,8 @@
-"""Precision and device configuration for quantpy-tpu.
+"""Precision, device and compile-cache configuration for quantpy-tpu.
 
-TPU-native default is single precision (float32/complex64): the MXU and VPU run
-at full rate there and HBM traffic halves. For parity tests against the CPU
-reference (which runs in float64/complex128, see reference quantpy/routines.py)
-an x64 mode is provided via :func:`enable_x64`.
+The default is single precision (float32/complex64). For parity tests
+against the CPU reference (which runs in float64/complex128, see reference
+quantpy/routines.py) an x64 mode is provided via :func:`enable_x64`.
 
 All numeric modules in this package derive their dtypes from the *current* JAX
 x64 flag through :func:`rdtype`/:func:`cdtype`, so flipping the flag switches
@@ -11,6 +10,9 @@ the whole framework's precision coherently.
 """
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,42 +22,48 @@ __all__ = [
     "is_x64",
     "rdtype",
     "cdtype",
-    "default_device_kind",
     "set_matmul_precision",
+    "use_compile_cache",
 ]
+
+#: persistent compile cache used when JAX_COMPILATION_CACHE_DIR is unset:
+#: a fixed path in the checkout, so one run's compiled programs are found
+#: again by the next (the cache key includes the path)
+DEFAULT_COMPILE_CACHE_DIR = Path(__file__).resolve().parent.parent / ".jax_cache"
 
 
 def set_matmul_precision(precision: str = "highest") -> None:
     """Set the global matmul precision.
 
-    TPU matmuls default to bfloat16 inputs, which destroys tomography
-    accuracy: measured on hardware, the 4-qubit bootstrap's distance
-    distribution collapses from a median of 0.004 to 0.84 under the
-    default. The 4^n-dim operators here are small, so 'highest'
-    (f32 via bf16x3 passes on the MXU) costs nothing — it measured
-    *faster* than 'bfloat16' on the flagship benchmark. Called with
-    'highest' on package import.
+    'highest' keeps float32 matmuls in full float32 arithmetic; on NVIDIA
+    GPUs it rules out TF32, which keeps only about three decimal digits of
+    each operand. Reduced-precision matmuls cost tomography accuracy: the
+    RrhoR MLE's likelihood ratios f/p amplify operand rounding, and the
+    bootstrap distance distribution it feeds sits at the 1e-3 scale.
+    Called with 'highest' on package import.
     """
     jax.config.update("jax_default_matmul_precision", precision)
 
 
-def enable_x64(enable: bool = True) -> None:
-    """Globally enable/disable 64-bit precision (float64/complex128).
+def use_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at a fixed directory.
 
-    x64 is a CPU-side mode (reference-parity testing); TPUs have no f64
-    hardware and the target backend fails on f64 buffers, so enabling it
-    with a TPU default device raises instead of poisoning the process
-    (docs/tpu_constraints.md)."""
-    if enable:
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:
-            platform = "unknown"
-        if platform not in ("cpu", "unknown"):
-            raise RuntimeError(
-                "x64 mode is CPU-only; set jax_platforms='cpu' first "
-                f"(default device platform: {platform})"
-            )
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+    sets nothing. Otherwise the cache goes to ``<checkout>/.jax_cache``,
+    derived from the package's own location. Returns the directory in
+    use. Importing the package does not call this: entry points
+    (``bench.py``, ``chip_smoke.py``, the CLIs) do.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = str(DEFAULT_COMPILE_CACHE_DIR)
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
+def enable_x64(enable: bool = True) -> None:
+    """Globally enable/disable 64-bit precision (float64/complex128)."""
     jax.config.update("jax_enable_x64", enable)
 
 
@@ -73,7 +81,3 @@ def cdtype() -> jnp.dtype:
     """Current default complex dtype (complex64, or complex128 in x64 mode)."""
     return jnp.dtype(jnp.complex128 if is_x64() else jnp.complex64)
 
-
-def default_device_kind() -> str:
-    """Kind of the default JAX device ('tpu', 'cpu', ...)."""
-    return jax.devices()[0].platform

@@ -9,7 +9,7 @@ quantpy/tomography/interval.py:317-329, 394-411):
 Here hundreds of such LPs (one per polytope margin delta, for +/-c) run as
 ONE jitted primal-dual iteration, batched over the b vectors. The problems
 are tiny (D <= a few hundred variables), so even tens of thousands of PDHG
-iterations are cheap on the VPU/MXU.
+iterations are cheap on the device.
 
 PDHG for  min_x c^T x + I_{<=b}(Ax):
     y_{k+1} = max(0, y_k + sigma (A xbar_k - b))
@@ -17,7 +17,7 @@ PDHG for  min_x c^T x + I_{<=b}(Ax):
     xbar_{k+1} = 2 x_{k+1} - x_k
 with tau * sigma * ||A||^2 < 1.
 
-Convergence control (round 2; round 1 ran a fixed iteration count): the
+Convergence control: the
 iteration runs in chunks under a lax.while_loop and stops when the worst
 LP of the batch satisfies the standard PDHG optimality residuals —
 primal feasibility ||(Ax - b)_+||_inf, dual feasibility ||c + A^T y||_inf
@@ -151,8 +151,8 @@ def _pdhg_matvec_chunk(
     """Run `n_chunk` PDHG iterations with matvecs built by
     `make_ops(static_ctx, *operands)` and return the updated state plus
     the convergence residuals. Host-chunked: the caller loops over chunks
-    and checks the residuals, keeping each device execution short
-    (docs/tpu_constraints.md: single executions are killed at ~60 s).
+    and checks the residuals, which kept each device execution under a
+    single-execution time limit of the earlier target (ROADMAP C1).
     """
     fwd, adj = make_ops(static_ctx, *operands)
 
@@ -305,7 +305,7 @@ def solve_lp_batch(c, a_matrix, b_batch, n_iter: int = 20000, tol: float | None 
     b_batch : (..., K) right-hand sides
     n_iter : iteration cap (checked every 500 iterations)
     tol : residual/duality-gap tolerance for early stopping; default
-        1e-9 in x64, 3e-5 in f32 (the PDHG drift floor on TPU)
+        1e-9 in x64, 3e-5 in f32 (the PDHG drift floor at f32)
 
     Returns
     -------

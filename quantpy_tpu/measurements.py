@@ -3,7 +3,7 @@
 Counterpart of reference quantpy/measurements.py:4-94. A POVM matrix is a
 real 3-D array (n_povms, n_outcomes, 4^n) of bloch-vector rows; the rows of
 each POVM sum to the identity's bloch vector. Being real, it is exactly the
-representation shipped to the TPU (docs/tpu_constraints.md).
+representation the batched device code consumes.
 
 Presets (identical numerics to the reference):
 - 'proj'     : all 6 Pauli eigenstates as one POVM, rows /6

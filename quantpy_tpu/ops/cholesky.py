@@ -90,9 +90,8 @@ def matrix_to_real_tril_vec(matrix: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Host-side (numpy) twins, for object-layer / interval-setup code that runs
-# in TPU-default processes where eager complex ops are unavailable
-# (docs/tpu_constraints.md).
+# Host-side (numpy) twins, for object-layer / interval-setup code that works
+# on single small matrices on the host.
 # ---------------------------------------------------------------------------
 
 

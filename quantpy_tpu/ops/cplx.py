@@ -1,8 +1,8 @@
 """Real <-> complex packing at jit boundaries.
 
-The target TPU backend cannot transfer complex arrays between host and device
-(see docs/tpu_constraints.md), while complex compute *inside* jit is fully
-supported. These helpers define the framework-wide convention for moving
+The framework's jitted functions take and return real arrays (ROADMAP C5
+asks whether that contract is still needed); complex compute happens inside
+jit. These helpers define the framework-wide convention for moving
 non-Hermitian complex data (gates, kets, Kraus/Choi factors) across jit
 boundaries: a trailing re/im axis of size 2.
 

@@ -2,13 +2,13 @@
 
 Why this exists: the anchored 4-qubit kraus-chain target needs the
 count-weighted reduction  -sum_i n_i * log1p(dp_i / p_i)  accurate to a
-~0.3 MH log-ratio budget at 4.1e7 total counts. On the TPU the f32
-elementwise `divide` and `log1p` are a few ulp off (the VPU's
-transcendentals are polynomial approximations; CPU f32 runs them through
-f64 libm under --xla_allow_excess_precision), and the error amplifies to
-eps_op * sum_i |n_i log1p(r_i)| ~ +-3.6 (measured round 4 on the 4q
-config, docs/benchmarks.md) — compensated SUMMATION alone cannot help
-when the summands themselves are wrong. Double-float evaluation carries
+~0.3 MH log-ratio budget at 4.1e7 total counts. Where an accelerator's
+f32 elementwise `divide` and `log1p` are a few ulp off (polynomial
+approximations; CPU f32 runs them through f64 libm under
+--xla_allow_excess_precision), the error amplifies to
+eps_op * sum_i |n_i log1p(r_i)|, several log-density units at this count
+scale (not measured on the H100; ROADMAP C4) — compensated SUMMATION
+alone cannot help when the summands themselves are wrong. Double-float evaluation carries
 ~48-bit effective mantissas through the division and the log1p, dropping
 the field to the 1e-3 scale (measured; same doc).
 
@@ -111,7 +111,7 @@ def df_mul_f(x, f):
 
 def df_div_ff(a, b):
     """plain / plain -> (hi, lo): one exact-residual correction of the
-    hardware quotient (TPU f32 divide is a few ulp off; the corrected
+    hardware quotient (an f32 divide may be a few ulp off; the corrected
     quotient is accurate to ~2^-48 relative)."""
     q0 = a / b
     p, e = two_prod(q0, b)

@@ -3,13 +3,12 @@
 Replaces reference quantpy/geometry.py. The reference computes matrix square
 roots with scipy.linalg.sqrtm (quantpy/geometry.py:23-56) which is neither
 jittable nor batched; since every input here is Hermitian PSD, sqrtm is done
-spectrally via eigh, which XLA batches natively on TPU.
+spectrally via eigh, which XLA batches natively.
 
 The functions are *backend polymorphic*: called with jax arrays (inside jit /
 on device) they trace to XLA; called with numpy arrays or host Qobj objects
-they compute in numpy. This matters because the target TPU cannot receive
-complex host arrays (docs/tpu_constraints.md), so host-side Qobj distance
-calls must never implicitly enter jax.
+they compute in numpy, so host-side Qobj distance calls on single small
+matrices never pay a device dispatch.
 
 All functions accept leading batch dimensions. The reference's snap-to-zero
 at 1e-15 (quantpy/geometry.py:17-19) is applied elementwise.

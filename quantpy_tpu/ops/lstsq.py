@@ -2,7 +2,7 @@
 
 The reference forms the explicit normal-equation left inverse
 (A^T A)^{-1} A^T (quantpy/routines.py:69-71). That squares the condition
-number — fatal in float32 on TPU — so the default solve path here goes
+number — fatal in float32 — so the default solve path here goes
 through a (batched) solve instead, with the explicit inverse kept only
 where downstream code genuinely needs the matrix (moment/Sugiyama
 intervals inspect its entries).
@@ -29,7 +29,7 @@ def left_inverse(a: jnp.ndarray) -> jnp.ndarray:
 
 def lstsq_solve(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve min ||A x - b||_2 via normal equations with a Cholesky-friendly
-    solve (batched; stays on the MXU). A: (..., m, n), b: (..., m) or
+    solve (batched; stays on device matmuls). A: (..., m, n), b: (..., m) or
     (..., m, k)."""
     a = jnp.asarray(a)
     b = jnp.asarray(b)

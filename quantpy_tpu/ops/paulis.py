@@ -12,7 +12,7 @@ Here the transform is expressed two ways, both jit/vmap friendly:
    materialization. Works for any qubit count.
 2. A cached dense *Pauli transfer matrix* (`pauli_transfer_matrix`) mapping
    bloch -> vec(matrix) as a single (4^n, 4^n) complex matmul — the
-   MXU-friendly path the estimators use for n <= PTM_MAX_QUBITS.
+   matmul path the estimators use for n <= PTM_MAX_QUBITS.
 
 Conventions (identical to the reference):
 - Pauli ordering I, X, Y, Z per qubit, lexicographic over qubits
@@ -130,10 +130,10 @@ def pauli_transfer_matrix(n_qubits: int) -> jnp.ndarray:
 
 # Qubits are contracted in groups of this size by the factored transforms:
 # the cached dense group basis is (4^g, 2^g, 2^g) = (64, 8, 8) at g=3 (tiny),
-# while the einsum minor dimensions grow from 2/4 (which waste 32-64x of
-# every 128-lane TPU tile and made the 6-qubit MLE loop transpose-bound) to
-# 64/8. The math is identical (kron associativity); only the contraction
-# order changes.
+# while the einsum minor dimensions grow from 2/4 to 64/8; the group size
+# was chosen for the earlier target's 128-lane tiles and is not measured on
+# the H100 (ROADMAP C2). The math is identical (kron associativity); only
+# the contraction order changes.
 TRANSFORM_GROUP = 3
 
 
@@ -271,8 +271,7 @@ def ptrace(matrix: jnp.ndarray, keep, n_qubits: int | None = None) -> jnp.ndarra
 # ---------------------------------------------------------------------------
 # Host-side (numpy) variants of the factored transforms. The object layer
 # (Qobj/Operator/Channel) is a lightweight host layer — single small matrices
-# are host work, and the target TPU cannot receive complex arrays anyway
-# (docs/tpu_constraints.md) — so it uses these instead of the jnp versions.
+# are host work — so it uses these instead of the jnp versions.
 # ---------------------------------------------------------------------------
 
 

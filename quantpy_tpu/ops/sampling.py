@@ -20,17 +20,14 @@ __all__ = ["sample_multinomial"]
 
 #: probs volume above which the binary splitter runs in BIT-REVERSED block
 #: order: the natural-order interleave (`stack([...], axis=-1)`) carries a
-#: trailing size-2 axis that (8,128) tiling pads 64x — XLA fuses it away at
-#: small volumes, but at the 10-qubit bootstrap scale it materializes as a
-#: copy (measured round 4: a 14.4 GB request for a 231 MB stack at
-#: (2, 59049, 256, 2) = 60.5M probs, OOM on 16 GB HBM). Bit-reversed order
-#: appends the right halves with a lane-axis concatenate (pad-free) and
-#: restores natural outcome order with one static gather at the end. The
-#: two orders draw DIFFERENT (equally distributed) streams for the same
-#: key, so the switch is gated between the largest measured-good
-#: natural-order volume (9q B=4 bootstrap chunks: (4, 19683, 512) = 40.3M,
-#: 4.7 rec/s round 3) and the measured-OOM 60.5M — everything at or below
-#: the measured-good volumes keeps the round-3 stream bit-identical.
+#: trailing size-2 axis that the earlier target's (8, 128) tiling padded 64x,
+#: and at the 10-qubit bootstrap scale that padded copy ran out of device
+#: memory. Bit-reversed order appends the right halves with a concatenate
+#: and restores natural outcome order with one static gather at the end.
+#: The two orders draw DIFFERENT (equally distributed) streams for the same
+#: key; the threshold sits between the largest volume that ran in natural
+#: order (9q bootstrap chunks, (4, 19683, 512) = 40.3M) and the failing
+#: (2, 59049, 256) = 60.5M. Not measured on the H100 (ROADMAP C2).
 _BITREV_SPLIT_VOLUME = 3 << 24
 
 
@@ -53,8 +50,6 @@ def _multinomial_binary_split(key, n_trials, probs):
     same distribution with only ceil(log2(m)) batched binomial rounds:
     at each level every block's left-half count is one conditional
     binomial, and all blocks at a level batch into a single call.
-    (Measured on the v5e flagship config: 33.6 ms -> ~8 ms for
-    1024 x 81 distributions of 16 outcomes.)
 
     probs must be normalized along the last axis; the outcome axis is
     zero-padded to the next power of two (Binomial(n, 0) == 0 exactly,
@@ -80,33 +75,24 @@ def _multinomial_binary_split(key, n_trials, probs):
         total = block_sums[level]
         lmass = block_sums[level + 1][..., 0::2]
         ratio = jnp.where(total > 0, lmass / jnp.where(total > 0, total, 1.0), 0.0)
-        # f32 rounding can push the ratio one ulp past 1 (measured on TPU:
-        # ratio 1.0000001 -> binomial returns NaN); clamp to the valid range
+        # f32 rounding can push the ratio one ulp past 1 (ratio 1.0000001
+        # -> binomial returns NaN); clamp to the valid range
         ratio = jnp.clip(ratio, 0.0, 1.0)
         if bitrev and level > 1:
             # counts are held in bit-reversed block order (see below);
             # permute the natural-order ratios to match (rev_k is an
             # involution; rev_0/rev_1 are identity)
             ratio = jnp.take(ratio, jnp.asarray(_bitrev_perm(level)), axis=-1)
-        # jax.random.binomial sequentializes over a SMALL leading axis
-        # when the per-element trailing volume is large (measured on this
-        # backend: (8, 4194304) 9.0 s vs (256, 262144) — 8x the elements —
-        # 0.134 s, and the same 20M draws flat 0.055 s; this was the
-        # entire wall of the 9-qubit batched bootstrap). Leading >= 256 is
-        # natively fast and FLATTENING those shapes is ~2x slower (extra
-        # relayouts, measured on both the (16384, 81, 2^k) flagship and
-        # the (256, 729, 2^k) 6q bootstrap) — so flatten only the
-        # pathological small-leading x large-volume case. Leading 128-255
-        # with large per-element volume is UNMEASURED (no workload in the
-        # suite produces it: bootstrap batches are either < 128 chunks or
-        # >= 256 resamples); it stays on the native path, the conservative
-        # choice since flattening is the measured-slower branch on the
-        # nearest measured neighbor (256). Element order is
-        # preserved, so the streams are bit-identical either way.
-        # scope: rank <= 3 only — flattening a rank-4 (64, 1024, 243, 2^k)
-        # process-bootstrap batch forced a relayout copy whose (4,128)
-        # tiling pads the trailing 2-axis 64x (measured: a 32.6 GB
-        # allocation request at the 5-qubit process bootstrap)
+        # On the earlier target jax.random.binomial sequentialized over a
+        # SMALL leading axis when the per-element trailing volume was
+        # large, while flattening shapes with a leading axis >= 256 was
+        # slower — so only the small-leading x large-volume case is
+        # flattened. Leading 128-255 with large volume (no workload
+        # produces it) stays on the native path. Element order is
+        # preserved, so the streams are bit-identical either way. Scope:
+        # rank <= 3 only — flattening a rank-4 process-bootstrap batch
+        # forced a padded relayout copy there. None of this is measured on
+        # the H100 (ROADMAP C2).
         lead = counts.shape[0] if counts.ndim > 1 else counts.size
         if counts.ndim <= 3 and lead < 128 and counts.size >= lead * (1 << 16):
             left = jax.random.binomial(

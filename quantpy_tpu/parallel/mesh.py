@@ -1,12 +1,12 @@
 """Multi-chip scaling: mesh construction and sharded bootstrap.
 
 The reference is single-process NumPy with sequential loops (SURVEY.md
-section 2, "parallelism: absent"). The TPU-native scaling axis for every
+section 2, "parallelism: absent"). The natural scaling axis for every
 workload in this domain is the *experiment/resample batch*: thousands of
 independent simulate+estimate problems. This module shards that axis over a
 `jax.sharding.Mesh` with `shard_map`, so the per-device program is exactly
-the single-chip bootstrap and the only collective is the final gather of
-distances over ICI.
+the single-device bootstrap and the only collective is the final gather of
+distances.
 
 For very large qubit counts the (K, 4^n) weighted-POVM operator can also be
 sharded over the measurement axis (`povm_sharded_probabilities`), turning
@@ -72,7 +72,7 @@ def sharded_bootstrap_distances(
 
     Each device draws and re-estimates its n_points/n_dev shard with an
     independent fold of `key`; distances are returned fully replicated
-    (all_gather over ICI).
+    (all_gather).
     """
     n_dev = mesh.devices.size
     if n_points % n_dev:
@@ -125,7 +125,7 @@ def sharded_kron_bootstrap_distances(
     """Kron-factored bootstrap data-parallel over the mesh — the multi-chip
     path for the 6+ qubit designs whose measurement matrix is never
     materialized. Per-device program = kron_core.kron_bootstrap_distances
-    on an n_points/n_dev shard; only the final distance gather rides ICI.
+    on an n_points/n_dev shard; only the final distance gather crosses devices.
     When the per-device shard exceeds the memory-safe fused batch (9-qubit
     volumes), the per-device program lax.map's over equal chunks — the
     kron_core wrapper detects the traced call and stays on-device.
@@ -243,7 +243,7 @@ def sharded_coverage(
 ):
     """Monte-Carlo coverage (polytopes/verification.py) sharded over the
     mesh: each device simulates and tests n_trials/n_dev experiments from
-    its own key fold; per-level hit counts ride a psum over ICI.
+    its own key fold; per-level hit counts ride a psum.
 
     `problem` is the tuple from verification.qst_problem / qpt_problem.
     Returns per-level coverage (L,), replicated.
@@ -304,7 +304,7 @@ def _sharded_chains(
     Python chain, mhmc.py:80-84; the single-chip extension vmaps them,
     mhmc.sample_chains); here each device runs its n_chains/n_dev share —
     same Metropolis kernel, own key folds, each with its own burn-in — and
-    the sample gather is the only ICI traffic. `make_fns(*extra_arrays)`
+    the sample gather is the only cross-device traffic. `make_fns(*extra_arrays)`
     builds the (logpdf, update_rule) pair inside the mapped region from
     the replicated array operands.
     """
@@ -461,14 +461,13 @@ def _kron_factor_shards(povm1, n_qubits: int, n_dev: int):
 
 def sharded_kron_forward_flat(mesh: Mesh, bloch, povm1, n_qubits: int):
     """OPERATOR-sharded kron forward (SURVEY section 2 checklist: "sharding
-    the 4^n Pauli-transfer operators over devices for n >= 6"; VERDICT r3
-    #3): the FIRST measurement group's outcome axis rides the mesh, so
+    the 4^n Pauli-transfer operators over devices for n >= 6"): the FIRST measurement group's outcome axis rides the mesh, so
     each device holds factor slice f0[:, p0_shard, :] and computes its
     (z, M, P/n_dev) slab of the output — the bloch input is replicated
     (4^n reals, e.g. 16 MB at 11 qubits) and NO collective runs in the
     forward. With 8 devices the 6^n output tensor (1.45 GB at 11 qubits,
     8.7 GB at 12) is memory-sharded 8x, which is the principled multi-chip
-    answer to the single-chip 11-qubit layout wall (docs/benchmarks.md).
+    answer to the one-device 11-qubit layout wall.
 
     Returns the flat forward (…, (m1*p1)^n) fully gathered — the matvec
     twin of kron_core.kron_forward_flat (equality-tested at 6 qubits).
@@ -502,7 +501,7 @@ def sharded_kron_forward_flat(mesh: Mesh, bloch, povm1, n_qubits: int):
 def sharded_kron_adjoint_flat(mesh: Mesh, c, povm1, n_qubits: int):
     """Operator-sharded kron adjoint: each device contracts its outcome
     slab c[..., M, p0_shard, ...] against its factor slice; the only
-    collective is the psum of the small (4^n,) results over ICI. Twin of
+    collective is the psum of the small (4^n,) results. Twin of
     kron_core.kron_adjoint_flat (equality-tested at 6 qubits)."""
     from ..tomography import kron_core
 
@@ -541,7 +540,7 @@ def sharded_kron_estimate_lin(
 ):
     """Operator-sharded linear inversion: counts live SHARDED on the
     outcome axis (the 6^n tensor is never whole on one device), the
-    adjoint psums the (4^n,) right-hand side over ICI, and the factored
+    adjoint psums the (4^n,) right-hand side, and the factored
     Gram solve + feasibility projection run replicated. Same math as
     kron_core.kron_estimate_lin (equality-tested at 6 qubits)."""
     from ..tomography import kron_core
@@ -648,7 +647,7 @@ def sharded_kron_simulate(mesh: Mesh, key, povm1, bloch, n_shots):
         # draw one first-group m-slice at a time (lax.map): the binary-
         # split sampler keeps every level's block sums alive, ~4x the
         # probs volume — fused at 12 qubits that peaked past the host's
-        # RAM on the virtual mesh (measured round 5); per-slice the
+        # RAM on the virtual mesh (measured); per-slice the
         # transient is 1/27th, while the counts output is unchanged
         def block(k_f0):
             kb, f0_blk = k_f0
@@ -689,13 +688,13 @@ def sharded_kron_estimate_mle_rhor(
       probability slab from the replicated bloch (no collective),
       forms freq/probs locally, and contracts its slab through the
       adjoint chain; the ONLY per-iteration collectives are the psum
-      of the small (z, 4^n) R-vector over ICI and the row all_gather
+      of the small (z, 4^n) R-vector and the row all_gather
       of the sandwich below;
     - the R·rho·R sandwich (the dense 2^n-dim matmuls, where the
-      MXU FLOPs are at 12 qubits: 2 x 4096^3 complex) is row-sharded:
+      matmul FLOPs are at 12 qubits: 2 x 4096^3 complex) is row-sharded:
       each device computes its (2^n/n_dev, 2^n) row block of
       (R rho) R and the blocks all_gather back to the replicated new
-      rho (268 MB at 12q c64 — one ICI round per iteration). When
+      rho (268 MB at 12q c64 — one all_gather per iteration). When
       n_dev does not divide 2^n the sandwich runs replicated instead.
 
     counts may be host-resident or already mesh-sharded (e.g. from
@@ -810,8 +809,7 @@ def sharded_mhmc_kraus_chains(
     jump_distr=None,
     u_scale=None,
 ):
-    """ANCHORED kraus-factor process chains sharded over the mesh (lifts
-    the round-3 vmap-only fence, VERDICT r3 #5): each device runs its
+    """ANCHORED kraus-factor process chains sharded over the mesh : each device runs its
     share of random-walk chains on the smooth exactly-CPTP anchored-delta
     target (process_core.process_nll_anchored); the chain state is the
     offset dz from the host-f64 anchor in `pack`

@@ -12,7 +12,7 @@ Feature parity with reference quantpy/qobj.py:13-356:
 
 Unlike the reference, conversions use the factored O(n 4^n) transforms
 (never the dense 16^n Pauli basis), and `bloch_device()` exports the
-TPU-shippable real representation used by the batched tomography layer.
+real representation used by the batched tomography layer.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ class Qobj(BaseQuantum):
 
     def bloch_device(self):
         """Real bloch vector as a device array — the representation the
-        batched TPU tomography layer consumes."""
+        batched tomography layer consumes."""
         import jax.numpy as jnp
 
         from .config import rdtype
@@ -139,8 +139,7 @@ class Qobj(BaseQuantum):
         return np.linalg.eig(self.matrix)
 
     def eigh(self):
-        """Hermitian eigendecomposition (ascending eigenvalues) — the
-        TPU-friendly variant the estimators use."""
+        """Hermitian eigendecomposition (ascending eigenvalues)."""
         return np.linalg.eigh(self.matrix)
 
     def is_density_matrix(self, verbose: bool = True) -> bool:

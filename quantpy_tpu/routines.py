@@ -1,6 +1,6 @@
 """Compatibility module mirroring reference quantpy/routines.py.
 
-Every helper the reference exposes here has a TPU-native equivalent in
+Every helper the reference exposes here has a batched equivalent in
 `quantpy_tpu.ops`; this module re-exports them under the reference's names
 (including the underscore-private ones that the reference's notebooks and
 downstream code import directly) so migrating code keeps working.

@@ -9,7 +9,7 @@ parametrization prior) and the estimate is the posterior mean — which is
 admissible and typically beats the MLE at low shot counts, where the MLE
 rails against the boundary of the state space.
 
-TPU-native design: `n_chains` independent chains run vmapped in parallel
+Design: `n_chains` independent chains run vmapped in parallel
 (one jitted program), each with its own burn-in; the posterior mean and a
 credible radius come from the pooled samples.
 """

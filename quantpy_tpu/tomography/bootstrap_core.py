@@ -29,8 +29,8 @@ __all__ = ["bootstrap_distances", "bootstrap_blochs"]
 
 @functools.partial(jax.jit, static_argnames=("name", "n_qubits"))
 def _distance_batch(name: str, blochs, bloch_ref, n_qubits: int):
-    """Batched distance between bloch-encoded states; jitted so complex
-    intermediates never materialize eagerly (docs/tpu_constraints.md).
+    """Batched distance between bloch-encoded states; jitted, so complex
+    intermediates stay inside one compiled program.
 
     The Hilbert-Schmidt distance never leaves bloch space: Pauli
     orthogonality gives ||A - B||_F^2 = 2^n * sum_i (a_i - b_i)^2, so

@@ -10,7 +10,7 @@ here all trials are simulated in one device call and the (trial, level)
 bisection grid is one vmapped fixed-depth bisection. The per-key trial
 kernel (:func:`coverage_hits`) is exposed separately so the mesh layer can
 shard trials across chips (parallel/mesh.py: each device runs its own key
-fold, hit counts are psum-reduced over ICI).
+fold, hit counts are psum-reduced).
 """
 
 from __future__ import annotations

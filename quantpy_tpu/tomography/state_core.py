@@ -9,14 +9,13 @@ quantpy/tomography/state.py:71-273 with batch-first device code:
 - `nll_tril` / `estimate_mle_chol`: Cholesky-parametrized MLE with *analytic*
   gradients (reference state.py:204-229 uses finite-difference BFGS)
 - `estimate_mle_rhor`: RrhoR fixed-point maximum-likelihood iteration
-  (Hradil's iterative MLE) — the TPU-native MLE path: each step is one
-  (K, 4^n) matvec + one factored bloch->matrix transform + two d x d
-  matmuls, all MXU work, vmappable over thousands of experiments.
+  (Hradil's iterative MLE) — the batched MLE path: each step is one
+  (K, 4^n) matvec + one bloch->matrix transform + two d x d matmuls,
+  vmappable over thousands of experiments.
 
-Every function takes/returns REAL arrays only (bloch vectors, counts,
-Cholesky parameter vectors) so it can cross the host<->device boundary on
-the target TPU (docs/tpu_constraints.md). Complex density matrices exist
-only inside the jitted computations.
+Every function takes/returns REAL arrays (bloch vectors, counts, Cholesky
+parameter vectors); complex density matrices exist only inside the jitted
+computations.
 
 Shape conventions:
 - povm_matrix: (m, p, D) real, D = 4^n — bloch rows
@@ -35,6 +34,11 @@ import jax.numpy as jnp
 from ..config import rdtype
 from ..ops.cholesky import matrix_to_real_tril_vec, real_tril_vec_to_matrix
 from ..ops.paulis import bloch_to_matrix, matrix_to_bloch, n_qubits_from_dim
+from ..ops.rhor_sandwich import (
+    rhor_sandwich,
+    rhor_sandwich_xla,
+    sandwich_kernel_applies,
+)
 from ..ops.sampling import sample_multinomial
 
 __all__ = [
@@ -96,10 +100,7 @@ def simulate_experiment(key, povm_matrix, bloch, n_measurements):
 @functools.partial(jax.jit, static_argnames=("n_qubits",))
 def make_feasible_bloch(bloch, n_qubits: int):
     """Project onto physical states: clip eigenvalues to EPS, renormalize
-    trace (reference state.py:267-273). Batched; real in/out.
-
-    Jitted at the boundary: complex intermediates must never materialize
-    eagerly on the target TPU (docs/tpu_constraints.md)."""
+    trace (reference state.py:267-273). Batched; real in/out."""
     eps = 1e-15
     rho = bloch_to_matrix(bloch, n_qubits)
     evals, evecs = jnp.linalg.eigh(rho)
@@ -115,7 +116,7 @@ def make_feasible_bloch(bloch, n_qubits: int):
 def estimate_lin(counts, povm_matrix, n_measurements, physical: bool = True):
     """Linear-inversion estimate (reference state.py:191-202), batched.
 
-    Solves the weighted least-squares system with a Gram solve (MXU path)
+    Solves the weighted least-squares system with a Gram solve (batched matmuls)
     instead of the explicit (A^T A)^{-1} A^T of reference routines.py:69-71.
 
     Parameters
@@ -270,12 +271,12 @@ def estimate_mle_rhor(
     bloch0 = 0.95 * init_bloch + 0.05 * mixed
 
     # R rho R via dense Pauli-transfer matmuls when the PTM is cached
-    # (n <= 6): measured 1.5x faster than the factored per-qubit transform
-    # chain at the 4-qubit flagship size. Works in the TRANSPOSED matrix
-    # space (column-stacked reshape of vec yields A^T; Hermitian palindromes
-    # are closed under transposition: (R rho R)^T = R^T rho^T R^T) so the
-    # reshape never needs untransposing. Real-split arithmetic keeps all
-    # matmuls MXU-shaped f32.
+    # (n <= 6) instead of the factored per-qubit transform chain (not
+    # measured on the H100). Works in the TRANSPOSED matrix space
+    # (column-stacked reshape of vec yields A^T; Hermitian palindromes are
+    # closed under transposition: (R rho R)^T = R^T rho^T R^T) so the
+    # reshape never needs untransposing. Real-split arithmetic keeps every
+    # product a real f32 matmul.
     from ..ops.paulis import PTM_MAX_QUBITS, _pauli_transfer_np
 
     use_ptm = n_qubits <= PTM_MAX_QUBITS
@@ -296,15 +297,22 @@ def estimate_mle_rhor(
             tim = tim.reshape(batch_shape + (dim * dim,))
             return (tre @ ptm_re + tim @ ptm_im) / dim
 
+        # the fused sandwich kernel where it applies (f32 on a GPU), else
+        # the same arithmetic as XLA ops; both return T / tr(T)
+        sandwich = (
+            rhor_sandwich
+            if sandwich_kernel_applies(dim, rdtype())
+            else rhor_sandwich_xla
+        )
+
         def update(bloch, r_bloch):
-            rre, rim = to_mats(r_bloch)
-            pre, pim = to_mats(bloch)
-            sre = rre @ pre - rim @ pim
-            sim = rre @ pim + rim @ pre
-            tre = sre @ rre - sim @ rim
-            tim = sre @ rim + sim @ rre
-            new = from_mats(tre, tim)
-            return new / (dim * new[..., 0:1])
+            with jax.named_scope("rhor_ptm"):
+                rre, rim = to_mats(r_bloch)
+                pre, pim = to_mats(bloch)
+            with jax.named_scope("rhor_sandwich"):
+                tre, tim = sandwich(rre, rim, pre, pim)
+            with jax.named_scope("rhor_ptm"):
+                return from_mats(tre, tim)
 
     else:
 
@@ -315,29 +323,18 @@ def estimate_mle_rhor(
             tr = jnp.trace(new, axis1=-2, axis2=-1).real
             return matrix_to_bloch(new) / tr[..., None]
 
-    # On TPU with qualifying shapes, run the fused Pallas kernel (the whole
-    # iteration stays in VMEM; measured 13% faster than this XLA loop and
-    # equal to 9e-8). Fixed iteration count: the fixed point is stationary.
-    from ..ops import kernels as _kernels
-
-    if (
-        use_ptm
-        and _kernels.pallas_supported(bloch0.shape[-1])
-        and bloch0.ndim == 2
-        and jax.default_backend() not in ("cpu",)
-        and rdtype() == jnp.float32
-    ):
-        return _kernels.rhor_mle_pallas(freq, bloch0, a2, n_iter=int(max_iter))
-
     def cond(carry):
         _, it, delta = carry
         return jnp.logical_and(it < max_iter, delta > tol)
 
+    # The named scopes label the loop's stages in profiler traces
+    # (tools/trace_flagship.py attributes device time by them).
     def step(carry):
         bloch, it, _ = carry
-        probs = jnp.einsum("kd,...d->...k", a2, bloch)
-        c = freq / jnp.clip(probs, _NLL_EPS, None)
-        r_bloch = jnp.einsum("kd,...k->...d", a2, c)
+        with jax.named_scope("rhor_contract"):
+            probs = jnp.einsum("kd,...d->...k", a2, bloch)
+            c = freq / jnp.clip(probs, _NLL_EPS, None)
+            r_bloch = jnp.einsum("kd,...k->...d", a2, c)
         new_bloch = update(bloch, r_bloch)
         delta = jnp.max(jnp.abs(new_bloch - bloch))
         return new_bloch, it + 1, delta
@@ -366,7 +363,7 @@ def estimate(
 
     'mle' / 'mle-constr' run Cholesky-LBFGS (the trace constraint of the
     reference's SLSQP variant is inactive because the estimate is
-    trace-normalized either way); 'mle-rhor' is the TPU-native fixed-point
+    trace-normalized either way); 'mle-rhor' is the batched fixed-point
     MLE. All return bloch vectors.
     """
     if method == "lin":
@@ -388,11 +385,10 @@ def estimate(
             counts, povm_matrix, n_measurements, init_bloch, max_iter, mle_tol
         )
     if method == "mle-rhor":
-        # delta tolerance floor keyed to working precision (f32 on TPU).
-        # Convergence is fast: measured on the 4-qubit/10k-shot flagship
-        # config, 60 iterations reach the f32 noise floor (max hs distance
-        # 3.6e-7 to the 800-iteration fixed point), so max_iter is honored
-        # as given (reference BFGS default max_iter=100 is comparable).
+        # delta tolerance floor keyed to the working precision: ten
+        # machine epsilons of the working dtype, or tol * 1e-3 where that
+        # is larger. max_iter is honored as
+        # given (reference BFGS default max_iter=100 is comparable).
         import numpy as np
 
         rhor_tol = max(float(np.finfo(np.dtype(rdtype())).eps) * 10, tol * 1e-3)

@@ -63,7 +63,7 @@ def test_config4_confidence_intervals_2q():
 
 def test_config5_5qubit_ghz_batched_mle():
     """5-qubit GHZ: batched vmapped MLE over many simulated experiments +
-    CI sweep (scaled down for CPU CI; the TPU bench runs the full size)."""
+    CI sweep (scaled down for CPU CI; bench.py runs the full size)."""
     state = qt.GHZ(5)
     tmg = qt.StateTomograph(state, key=105)
     tmg.experiment(2000, "proj-set")

@@ -1,9 +1,9 @@
 """Double-float (ops/df32.py) accuracy tests against float64.
 
 These run in the suite's x64-enabled CPU config but build f32 inputs and
-compare the df32 (hi, lo) results against numpy float64 — the same check
-the round-4 on-chip probe runs on the TPU (where the hardware divide /
-log1p are a few ulp off and the df correction must survive XLA)."""
+compare the df32 (hi, lo) results against numpy float64 — the check that
+matters on an accelerator whose hardware divide / log1p are a few ulp off,
+where the df correction must survive XLA."""
 
 import jax
 import jax.numpy as jnp

@@ -553,9 +553,9 @@ def test_mhmc_untempered_is_tighter(state_tmg):
 
 
 def test_mhmc_warns_on_nonconverged_chain(process_tmg):
-    """A decisively-unmixed chain must WARN, not silently return quantiles
-    (VERDICT r3 #7): a tiny-step no-burn-in chain's distance series trends
-    away from the start, so split R-hat blows past the 1.2 threshold."""
+    """A decisively-unmixed chain must WARN, not silently return quantiles:
+    a tiny-step no-burn-in chain's distance series trends away from the
+    start, so split R-hat blows past the 1.2 threshold."""
     iv = qt.MHMCProcessInterval(
         process_tmg, n_points=60, step=1e-4, burn_steps=0,
         use_new_estimate=True,
@@ -705,7 +705,7 @@ def test_mhmc_process_interval_multichain(process_tmg):
 
 @pytest.mark.slow
 def test_polytope_interval_f32_vs_x64(state_tmg):
-    """f32 (TPU working precision) polytope bounds agree with x64 — guards
+    """f32 (the default working precision) polytope bounds agree with x64 — guards
     against PDHG drift over long iteration counts at single precision."""
     import jax
 

@@ -29,8 +29,8 @@ def test_kron_probs_match_dense(problem):
 
 
 def test_chunked_chain_matches_fused(problem, monkeypatch):
-    """The m-block-chunked grouped chains (the 11-qubit enabler, VERDICT
-    r3 #2) compute the same forward/adjoint as the fused einsum — forced
+    """The m-block-chunked grouped chains (the 11-qubit enabler) compute
+    the same forward/adjoint as the fused einsum — forced
     here by dropping the volume threshold to 0."""
     n, tmg, counts, povm1 = problem
     bloch = np.stack([tmg.state.bloch, np.asarray(tmg.state.bloch) * 0.5])
@@ -115,8 +115,7 @@ def test_kron_6qubit_lin_smoke():
 @pytest.mark.slow
 def test_kron_8qubit_smoke():
     """8-qubit pipeline: groups (3, 3, 2), counts (6561, 256), 65,536-dim
-    bloch. Measured on the chip at ~50 ms/stage and 40 bootstrap rec/s
-    (docs/benchmarks.md); here just correctness at CPU scale."""
+    bloch. Correctness at CPU scale."""
     n = 8
     state = qt.GHZ(n)
     povm1 = _single_qubit_preset("proj-set")
@@ -170,7 +169,7 @@ def test_kron_bootstrap_interval():
 
 
 def test_kron_simulate_chunked_matches_design():
-    """The host-chunked simulate (the 11-qubit kill-window-safe draw)
+    """The host-chunked simulate (the 11-qubit draw; ROADMAP C1)
     samples the same design as the fused draw: exact per-POVM totals,
     same estimator quality on the same truth (streams differ by the
     documented per-block key folds)."""

@@ -173,7 +173,7 @@ def test_channel_algebra():
 
 
 def test_channel_composition():
-    """`a @ b` is map composition (VERDICT r3 #8): unitary channels compose
+    """`a @ b` is map composition: unitary channels compose
     like their operators, mixed-representation pairs compose through
     transform, and the result is CPTP."""
     # unitary test: U.as_channel() @ V.as_channel() == (U @ V).as_channel()

@@ -90,7 +90,7 @@ def test_sharded_kron_bootstrap_chunked(design):
     """Regression: when the per-device resample shard exceeds the fused
     chunk (the 9-qubit memory rule), the kron wrapper runs under the
     shard_map trace — it must lax.map on-device instead of raising
-    TracerArrayConversionError from host chunking (ADVICE round 3)."""
+    TracerArrayConversionError from host chunking."""
     from quantpy_tpu.measurements import _single_qubit_preset
     from quantpy_tpu.parallel import sharded_kron_bootstrap_distances
     from quantpy_tpu.tomography import kron_core
@@ -119,7 +119,7 @@ def test_sharded_kron_bootstrap_chunked(design):
 
 def test_operator_sharded_kron_chain_6q():
     """The OPERATOR-sharded kron transforms (first-group outcome axis over
-    the mesh, VERDICT r3 #3) equal the single-device chains at 6 qubits —
+    the mesh) equal the single-device chains at 6 qubits —
     the multi-chip answer to the 11-qubit single-chip layout wall."""
     from quantpy_tpu.measurements import _single_qubit_preset
     from quantpy_tpu.parallel import (
@@ -162,7 +162,7 @@ def test_operator_sharded_kron_chain_6q():
 
 
 def test_operator_sharded_kron_mle_6q():
-    """The operator-sharded RrhoR MLE (VERDICT r4 #3: sharded iteration on
+    """The operator-sharded RrhoR MLE (sharded iteration on
     the sharded design, the 12-qubit route) reaches the same fixed point as
     the single-device kron MLE on identical counts, and the born-sharded
     simulate feeds it end to end."""
@@ -204,7 +204,7 @@ def test_operator_sharded_kron_mle_6q():
 
 def test_sharded_kraus_chains():
     """Mesh-sharded ANCHORED kraus-factor process chains (the round-3
-    vmap-only fence lifted, VERDICT r3 #5): 8 chains over 8 devices agree
+    vmap-only fence lifted): 8 chains over 8 devices agree
     with the vmapped chains statistically."""
     from quantpy_tpu.channel import depolarizing
     from quantpy_tpu.tomography.process import ProcessTomograph

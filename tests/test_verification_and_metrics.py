@@ -91,8 +91,8 @@ REF_PICKLE = "/root/reference/polytopes/results/states_qubits_10k.pkl"
 def test_coverage_matches_published_curve():
     """Reproduce the reference's published GHZ-1 coverage curve
     (arXiv:2109.04734 fig 1a data, polytopes/results/states_qubits_10k.pkl)
-    within Monte-Carlo tolerance (full 10^4-trial comparison in
-    docs/benchmarks.md reaches <= 0.011 on every curve)."""
+    within Monte-Carlo tolerance (the full 10^4-trial comparison in
+    PARITY.md reaches <= 0.011 on every curve)."""
     with open(REF_PICKLE, "rb") as f:
         ref_data = pickle.load(f)
     conf = np.asarray(ref_data["cl"])
